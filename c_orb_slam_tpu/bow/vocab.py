@@ -6,7 +6,7 @@ tf-idf weighting (:799-827), text (de)serialization (:1338-1424);
 FORB.cpp — popcount distance (:81), bitwise-majority meanValue (:28-77).
 ORBvoc is k=10, L=6 (SURVEY.md §2.2).
 
-TPU-native: the tree is stored level-major as one (k^l, 8) uint32
+Array-program design: the tree is stored level-major as one (k^l, 8) uint32
 descriptor array per level, children of node i at level l-1 occupying
 slots [i*k, (i+1)*k) at level l. The transform of a whole frame's
 descriptors is a single jitted program: L static iterations of

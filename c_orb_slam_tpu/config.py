@@ -1,4 +1,4 @@
-"""Typed configuration for the TPU-native SLAM engine.
+"""Typed configuration for the SLAM engine.
 
 The reference reads a single OpenCV-YAML file per run (reference:
 src/Tracking.cc:46-149 parses Camera.*, ORBextractor.*, ThDepth,
@@ -159,13 +159,10 @@ class TrackingConfig:
     # track() drains opportunistically). The device pose chain keeps the
     # constant-velocity prediction at 1-frame lag regardless of depth, so
     # depth only delays host bookkeeping (keyframe decisions, map
-    # updates). 3 covers the ~35-65 ms dispatch->host-visible result
-    # latency of a remote-attached chip at ~10-15 ms host work per frame.
-    # 0 = auto: depth 3 on an accelerator backend (there IS readback
-    # latency to hide), lock-step 1 on CPU (no latency to hide, and the
-    # stale bookkeeping of a deep pipeline measurably destabilizes
-    # rotation-heavy sequences while buying nothing).
-    pipeline_depth: int = 0
+    # updates). Default lock-step 1 on every backend: the stale bookkeeping
+    # of a deep pipeline measurably destabilizes rotation-heavy sequences,
+    # and whether a deeper pipeline pays on the H100 is not measured.
+    pipeline_depth: int = 1
 
 
 @dataclass(frozen=True)

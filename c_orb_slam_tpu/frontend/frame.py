@@ -5,7 +5,7 @@ Reference: src/Frame.cc — the three constructors (:61 stereo, :119 RGBD,
 Frame.cc:78-81), keypoint undistortion (:404), stereo matching (:466) and
 grid binning (:230).
 
-TPU-native: one jitted program per sensor type; the L/R "thread pair"
+Array-program design: one jitted program per sensor type; the L/R "thread pair"
 becomes a batched 2-image extraction; the 64x48 search grid is not needed
 (matching uses dense masked distance matrices, ops/match.py).
 """
@@ -149,7 +149,7 @@ def build_stereo(
     # Both extractions as ONE batch-2 vmapped program: the per-level
     # pyramid/FAST/BRIEF kernels run once with a leading batch axis
     # instead of twice back-to-back (the reference uses two threads,
-    # Frame.cc:78-81; the TPU equivalent is batching, not threading).
+    # Frame.cc:78-81; the array-program equivalent is batching, not threading).
     kb = jax.vmap(
         lambda im: extract.extract_orb(im, cfg.orb, cfg.vocabulary.seed)
     )(jnp.stack([left, right]))

@@ -4,11 +4,11 @@ Reference: Examples/Stereo/stereo_euroc.cc:72-98 — reads LEFT.*/RIGHT.*
 K, D, R, P from the settings YAML, builds cv::initUndistortRectifyMap
 once, and cv::remap's every frame on the CPU.
 
-TPU-native: the (H, W, 2) source-coordinate maps are computed once on the
-host (numpy; identical math to OpenCV: unproject with the new projection
-matrix P, rotate by R^-1, apply radial-tangential distortion, project with
-the original K), and the per-frame remap is one jitted gather-based
-bilinear sample that fuses with the downstream extraction kernels.
+Array-program design: the (H, W, 2) source-coordinate maps are computed once on
+the host (numpy; identical math to OpenCV: unproject with the new projection
+matrix P, rotate by R^-1, apply radial-tangential distortion, project with the
+original K), and the per-frame remap is one jitted gather-based bilinear sample
+that fuses with the downstream extraction kernels.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Pinhole camera model with radial-tangential distortion.
 
-TPU-native replacement for the reference's scattered OpenCV calls:
+array-program replacement for the reference's scattered OpenCV calls:
 - cv::undistortPoints (reference: src/Frame.cc:404-434 UndistortKeyPoints)
   becomes an iterative fixed-point undistortion, vmapped over keypoints.
 - projection helpers used by matchers/optimizers (reference:

@@ -1,6 +1,6 @@
 """SO(3) rotations: exp/log maps, quaternion conversions.
 
-Pure, vmappable functions over float32 arrays — the TPU-native replacement
+Pure, vmappable functions over float32 arrays — the array-program replacement
 for the Eigen/g2o rotation plumbing the reference leans on
 (reference: Thirdparty/g2o/g2o/types/se3quat.h, src/Converter.cc).
 

@@ -33,10 +33,9 @@ def triangulate_dlt(
 
     The reference solves the homogeneous system with a per-point SVD
     (Initializer.cc:744). Batched tiny SVDs lower to iterative Jacobi
-    sweeps on TPU — measured ~130 ms for the 40k points of one keyframe's
-    triangulation stage, dwarfing the actual matching matmuls. Instead we
+    sweeps, far more work than the matching around them. Instead we
     fix X4=1 (inhomogeneous DLT) and solve the 3x3 normal equations in
-    closed form via the adjugate — a handful of fused VPU ops. Points
+    closed form via the adjugate — a handful of fused elementwise ops. Points
     where the X4=1 chart degenerates (near infinity / zero parallax)
     produce wild solutions that the caller's depth/parallax/reprojection
     gates cull, exactly as they cull the SVD version's low-parallax

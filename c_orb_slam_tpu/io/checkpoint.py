@@ -3,7 +3,7 @@
 The reference never implemented this — `// TODO: Save/Load functions
 SaveMap/LoadMap` (reference: include/System.h:115-117) — which also means
 its localization-only mode can never start from a stored map. Because the
-TPU-native map is already a struct-of-arrays (slam_map/mapstate.py), a
+map here is already a struct-of-arrays (slam_map/mapstate.py), a
 checkpoint is one compressed npz of those arrays plus scalar counters;
 the BoW vocabulary (needed for relocalization against the stored map)
 rides along in the same file.

@@ -2,11 +2,11 @@
 //
 // The reference's dataset drivers block the tracking thread on
 // cv::imread for every frame (reference: Examples/Stereo/stereo_kitti.cc:85,
-// Examples/Monocular/mono_tum.cc:78). On a TPU host the tracking step is
+// Examples/Monocular/mono_tum.cc:78). Here the tracking step is
 // dispatched asynchronously to the device, so frame decode becomes the
 // serial bottleneck. This loader decodes PNG / JPEG / PGM-PPM to grayscale
 // float32 in a C++ worker pool that stays N frames ahead of the consumer,
-// delivering frames in order through a bounded ring - the TPU-native
+// delivering frames in order through a bounded ring - the array-program
 // replacement for the reference's synchronous IO path.
 //
 // C API (ctypes-friendly):

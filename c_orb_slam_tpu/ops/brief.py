@@ -4,8 +4,8 @@ Reference: src/ORBextractor.cc:108-147 computeOrbDescriptor samples 256
 learned point pairs (the bit_pattern_31_ table, ORBextractor.cc:150-408,
 derived from OpenCV) rotated by the keypoint angle, one keypoint at a time.
 
-TPU-native design: descriptors for all keypoints are produced by one
-gather + compare pass over pre-extracted 37x37 patches. The sampling
+Array-program design: descriptors for all keypoints are produced by one
+gather + compare pass over the blurred image. The sampling
 pattern here is NOT the OpenCV learned table (we do not copy reference
 data): it is a deterministic seeded Gaussian BRIEF pattern (sigma =
 patch/5, as in the original BRIEF paper), which is internally consistent
@@ -17,19 +17,16 @@ from __future__ import annotations
 
 import functools
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 
-from c_orb_slam_tpu.ops import orient
 from c_orb_slam_tpu.ops.hamming import pack_bits
 
 N_BITS = 256
-# Patch gathered around each keypoint: must contain a rotated 31x31 pattern,
-# ceil(31/2 * sqrt(2)) = 22 -> 45x45. We clip pattern offsets to +/-13 like
-# BRIEF so 37x37 (half=18) suffices: |rotated| <= 13*sqrt(2) < 18.4 -> 18.
+# Pattern offsets are clipped to +/-13 like BRIEF, so a rotated sample lies
+# within 13*sqrt(2) < 18.4 px of its keypoint: inside the 19 px border
+# that detection keeps free (OrbConfig.edge_threshold).
 PATTERN_CLIP = 13
-PATCH_HALF = 18
 
 
 @functools.lru_cache(maxsize=4)
@@ -39,50 +36,6 @@ def brief_pattern(seed: int = 7) -> np.ndarray:
     rng = np.random.default_rng(seed)
     pts = rng.normal(0.0, 6.2, size=(N_BITS, 4))
     return np.clip(np.round(pts), -PATTERN_CLIP, PATTERN_CLIP).astype(np.int32)
-
-
-# Discrete steered BRIEF: the original ORB paper quantizes the keypoint
-# angle to 2*pi/30 increments and precomputes one rotated pattern per bin
-# ("we discretize the angle ... and construct a lookup table"). On TPU the
-# lookup becomes a constant one-hot selection matrix, so descriptor
-# sampling is ONE MXU matmul over gathered patches instead of per-bit
-# random gathers (XLA gathers are the slow path on TPU).
-N_BINS = 30
-PATCH_FLAT = (2 * PATCH_HALF + 1) ** 2
-
-
-@functools.lru_cache(maxsize=4)
-def _rotated_index_table(seed: int = 7) -> np.ndarray:
-    """(N_BINS, 512) int32 flat 37x37-patch indices: per bin, the rotated
-    sample position of the 256 'a' points then the 256 'b' points."""
-    pat = brief_pattern(seed).astype(np.float64)
-    size = 2 * PATCH_HALF + 1
-    out = np.zeros((N_BINS, 2 * N_BITS), np.int32)
-    for r in range(N_BINS):
-        th = 2.0 * np.pi * r / N_BINS
-        c, s = np.cos(th), np.sin(th)
-        for half, (oy, ox) in enumerate([(0, 1), (2, 3)]):
-            y, x = pat[:, oy], pat[:, ox]
-            # Same rotation convention as the reference
-            # (ORBextractor.cc:120-121).
-            ix = np.clip(np.round(c * x - s * y).astype(np.int64) + PATCH_HALF, 0, size - 1)
-            iy = np.clip(np.round(s * x + c * y).astype(np.int64) + PATCH_HALF, 0, size - 1)
-            out[r, half * N_BITS:(half + 1) * N_BITS] = iy * size + ix
-    return out
-
-
-@functools.lru_cache(maxsize=4)
-def _selection_matrix(seed: int = 7) -> np.ndarray:
-    """(N_BINS * 512, PATCH_FLAT) f32 one-hot selection — a host constant
-    (numpy, NOT a device array: caching a jnp array created inside a jit
-    trace leaks a tracer into every later trace); sampling = patches @ S.T
-    on the MXU. One nonzero per row, f32 throughout: sampled values are
-    exact, so BRIEF comparisons match the gather path bit-for-bit."""
-    table = _rotated_index_table(seed)  # (N_BINS, 512)
-    flat = table.reshape(-1)
-    S = np.zeros((flat.shape[0], PATCH_FLAT), np.float32)
-    S[np.arange(flat.shape[0]), flat] = 1.0
-    return S
 
 
 def compute_descriptors(
@@ -97,29 +50,8 @@ def compute_descriptors(
     describing, ORBextractor.cc:1086). angles: (N,) radians.
     Returns (N, 8) uint32.
     """
-    if jax.default_backend() == "tpu":
-        # Discrete-rotation path (ORB-paper 30-bin steering): gather a
-        # 37x37 patch per keypoint (dynamic_slice — fast), then sample all
-        # 30 rotated patterns with one constant one-hot matmul on the MXU
-        # and select the keypoint's bin. Random per-bit gathers (the slow
-        # lowering on TPU) never happen.
-        n = yx.shape[0]
-        patches = orient.gather_patches(image_blurred, yx, PATCH_HALF)
-        flat = patches.reshape(n, PATCH_FLAT)
-        S = jnp.asarray(_selection_matrix(seed))  # (N_BINS*512, PATCH_FLAT)
-        vals = jnp.dot(
-            flat, S.T, preferred_element_type=jnp.float32
-        ).reshape(n, N_BINS, 2 * N_BITS)
-        bins = (
-            jnp.round(angles * (N_BINS / (2.0 * np.pi))).astype(jnp.int32)
-            % N_BINS
-        )
-        sel = jnp.take_along_axis(vals, bins[:, None, None], axis=1)[:, 0]
-        bits = (sel[:, :N_BITS] < sel[:, N_BITS:]).astype(jnp.uint8)
-        return pack_bits(bits)
-
-    # Continuous-rotation path (CPU/other backends): rotate pattern
-    # offsets per keypoint and gather the 2x256 sample points straight
+    # Rotate the pattern offsets per keypoint (continuous steering, as
+    # the reference does) and gather the 2x256 sample points straight
     # from the image.
     pat = jnp.asarray(brief_pattern(seed), dtype=jnp.float32)  # (256, 4)
     h, w = image_blurred.shape

@@ -4,7 +4,7 @@ rBRIEF, producing a fixed-capacity keypoint batch.
 Reference: src/ORBextractor.cc operator() (1043-1105). The reference
 balances keypoints with a recursive quadtree (DistributeOctTree,
 ORBextractor.cc:539-763) — inherently pointer/recursion shaped. The
-TPU-native equivalent with the same intent (spatial uniformity + response
+array-program equivalent with the same intent (spatial uniformity + response
 ranking): per-cell top-k on the NMS'd score map, then a global top-N per
 level; all shapes static, everything one fused XLA program per level.
 

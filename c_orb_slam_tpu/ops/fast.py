@@ -5,12 +5,12 @@ cell with a threshold fallback 20 -> 7 (ORBextractor.cc:809-835), then
 balances keypoints spatially with a quadtree (DistributeOctTree,
 ORBextractor.cc:539-763).
 
-TPU-native design: no per-cell loops — one pass computes the segment test
-for every pixel at once (16 shifted copies of the image, bit-packed arc
-test on the VPU), a second cheap pass blends the high/low thresholds per
-cell (a cell uses the low threshold only if it has no high-threshold
-corner), 3x3 NMS via reduce_window, and spatial balancing becomes
-per-cell top-k + global top-N on the score map (ops/extract.py).
+Array-program design: no per-cell loops — one pass computes the segment test
+for every pixel at once (16 shifted copies of the image, bit-packed arc test as
+elementwise ops), a second cheap pass blends the high/low thresholds per cell
+(a cell uses the low threshold only if it has no high-threshold corner), 3x3
+NMS via reduce_window, and spatial balancing becomes per-cell top-k + global
+top-N on the score map (ops/extract.py).
 """
 
 from __future__ import annotations

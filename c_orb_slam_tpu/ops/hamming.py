@@ -4,8 +4,8 @@ The reference computes descriptor distance one pair at a time with a
 hand-unrolled XOR/popcount over 8 int32 words
 (reference: src/ORBmatcher.cc:1647-1663 DescriptorDistance) and loops over
 candidates. Here the whole candidate set is one batched popcount — a
-(N1, N2) distance matrix or masked variant — which is the shape the VPU
-wants. jax.lax.population_count lowers to the native popcount.
+(N1, N2) distance matrix or masked variant. jax.lax.population_count
+lowers to the native popcount.
 
 Descriptors are stored as (N, 8) uint32 (256 bits).
 """
@@ -42,9 +42,9 @@ def distance(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
 def distance_matrix(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
     """(N1, 8) x (N2, 8) -> (N1, N2) int32 Hamming distances.
 
-    MXU formulation: for binary vectors, d(a, b) = |a| + |b| - 2 a·b, so
-    the whole matrix is one (N1, 256) x (256, N2) matmul on the systolic
-    array instead of N1*N2*8 VPU popcounts (the reference's scalar
+    Matrix-unit formulation: for binary vectors, d(a, b) = |a| + |b| -
+    2 a·b, so the whole matrix is one (N1, 256) x (256, N2) bfloat16
+    matmul instead of N1*N2*8 popcounts (the reference's scalar
     XOR/popcount loop is ORBmatcher.cc:1647-1663). Bits are exact in
     bfloat16 and the f32 accumulation is exact (sums <= 256 << 2^24).
     """

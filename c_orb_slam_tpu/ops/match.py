@@ -1,4 +1,4 @@
-"""Batched descriptor matching — the TPU replacement for ORBmatcher.
+"""Batched descriptor matching — the array-program replacement for ORBmatcher.
 
 The reference implements seven hand-specialized correspondence searches,
 each a nest of per-feature loops over grid cells or BoW nodes
@@ -8,8 +8,9 @@ SearchForInitialization, SearchForTriangulation, Fuse x2, SearchBySim3).
 Here they all reduce to one primitive: a masked (Q, T) Hamming distance
 matrix + best/second-best reduction, where the mask encodes whatever
 gating the variant needs (search window, octave range, epipolar band,
-already-matched exclusion). On TPU the full masked matrix is cheaper than
-pointer-chasing cell lookups; the VPU eats the popcounts.
+already-matched exclusion). XLA fuses the gating masks, the distance
+product and the top-2 reductions; a dense masked matrix replaces
+pointer-chasing cell lookups.
 
 Rotation-consistency filtering (reference: ORBmatcher.cc:1601-1642
 ComputeThreeMaxima) is a 30-bin histogram vote, batched.
@@ -17,7 +18,6 @@ ComputeThreeMaxima) is a 30-bin histogram vote, batched.
 
 from __future__ import annotations
 
-import os
 from typing import NamedTuple
 
 import jax
@@ -160,30 +160,6 @@ def epipolar_mask(
     return dsqr < thresh_chi2 * sigma2
 
 
-# Pallas backend for search_by_projection (ops/pallas_match.py): streams
-# target tiles through VMEM instead of materializing (Q, T) temporaries
-# in HBM. Measured on the real chip (PALLAS_MATCH_BENCH.json /
-# tools/bench_pallas_match.py): neutral below ~3e7 query*target products
-# (dispatch latency dominates both paths), 1.34x at 8192x5287 and 1.47x
-# at 16384x8192 — so it AUTO-ENABLES on TPU at KITTI-geometry map sizes
-# and stays off below. Env overrides force it on/off everywhere.
-USE_PALLAS = bool(os.environ.get("C_ORB_SLAM_TPU_PALLAS_MATCH"))
-NO_PALLAS = bool(os.environ.get("C_ORB_SLAM_TPU_NO_PALLAS_MATCH"))
-PALLAS_MIN_PRODUCT = 30_000_000
-
-
-def _want_pallas(n_q: int, n_t: int) -> bool:
-    if NO_PALLAS:
-        return False
-    if USE_PALLAS:
-        return True
-    if n_q * n_t < PALLAS_MIN_PRODUCT:
-        return False
-    from c_orb_slam_tpu.ops import pallas_match
-
-    return pallas_match.available()
-
-
 def search_by_projection(
     proj_uv: jnp.ndarray,
     radii: jnp.ndarray,
@@ -204,21 +180,6 @@ def search_by_projection(
     Covers reference SearchByProjection variants (ORBmatcher.cc:45-129
     local-map points; :1328-1470 motion model; :1472-1599 reloc).
     """
-    if _want_pallas(desc_q.shape[0], desc_t.shape[0]):
-        from c_orb_slam_tpu.ops import pallas_match
-
-        best, idx, second = pallas_match.window_top2(
-            desc_q, proj_uv, radii, octave_lo, octave_hi, valid_q,
-            desc_t, xy_t, octave_t, valid_t,
-        )
-        ok = best <= max_dist
-        if nn_ratio < 1.0:
-            ok = ok & (
-                best.astype(jnp.float32)
-                < nn_ratio * second.astype(jnp.float32)
-            )
-        ok = ok & _is_target_winner(idx, best, ok, desc_t.shape[0])
-        return Matches(idx=idx, dist=best, valid=ok)
     mask = window_mask(proj_uv, radii, xy_t) & octave_mask(
         octave_t, octave_lo, octave_hi
     )

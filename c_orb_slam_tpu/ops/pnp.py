@@ -4,14 +4,14 @@ Reference: src/PnPsolver.cc — adaptive RANSAC over 4-point EPnP
 (choose_control_points :375 ... gauss_newton :840) driven one iteration at
 a time from Tracking::Relocalization (src/Tracking.cc:1398-1447).
 
-TPU-native: all hypotheses are evaluated in ONE vmapped pass. The minimal
-solver here is a 6-point DLT (vmapped 12x12 eigendecomposition +
-orthogonal Procrustes projection of the rotation) instead of EPnP —
-linear, batched, and free of EPnP's beta-case branching; hypothesis
-quality is ranked by per-octave chi2 inlier count exactly like the
-reference's CheckInliers (PnPsolver.cc:308-339), and the winner is
-polished by the motion-only GN solver (optim/pose_opt.py), which plays
-the role of the reference's Refine (PnPsolver.cc:260-305).
+Array-program design: all hypotheses are evaluated in ONE vmapped pass. The
+minimal solver here is a 6-point DLT (vmapped 12x12 eigendecomposition +
+orthogonal Procrustes projection of the rotation) instead of EPnP — linear,
+batched, and free of EPnP's beta-case branching; hypothesis quality is ranked
+by per-octave chi2 inlier count exactly like the reference's CheckInliers
+(PnPsolver.cc:308-339), and the winner is polished by the motion-only GN solver
+(optim/pose_opt.py), which plays the role of the reference's Refine
+(PnPsolver.cc:260-305).
 """
 
 from __future__ import annotations

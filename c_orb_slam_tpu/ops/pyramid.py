@@ -5,7 +5,7 @@ scale 1.2 with cv::resize (bilinear) and a replicated border;
 ORBextractor.cc:1086 applies a 7x7 sigma=2 GaussianBlur before computing
 descriptors.
 
-TPU-native design: levels have static shapes derived from config at trace
+Array-program design: levels have static shapes derived from config at trace
 time; each level is its own array (a Python list — jit callers close over
 the level loop so XLA sees a fixed unrolled program). Images are float32
 in [0, 255] with layout (H, W).
@@ -60,9 +60,8 @@ def gaussian_blur(image: jnp.ndarray, size: int = 7, sigma: float = 2.0) -> jnp.
     half = size // 2
     img = jnp.pad(image, ((half, half), (half, half)), mode="edge")
     # Separable pass as STATIC shifted slices + weighted adds: a 1-channel
-    # conv_general_dilated can't use the MXU (channel dim 1) and measured
-    # ~6 ms at 640x480; the shift-and-add form fuses into one VPU
-    # elementwise pass (~0.3 ms).
+    # convolution has no channel dimension for a matrix unit to use; the
+    # shift-and-add form fuses into one elementwise pass.
     h, w = image.shape
     x = sum(
         float(k[i]) * jax.lax.slice(img, (0, i), (h + 2 * half, i + w))

@@ -5,7 +5,7 @@ call, LoopClosing.cc:286-301) over 3-point Horn 1987 quaternion alignment
 (ComputeSim3 :226-337), inliers checked by two-way reprojection
 (CheckInliers :340-364); scale fixed for stereo/RGB-D (:292-311).
 
-TPU-native: all hypotheses in one vmapped pass; the 4x4 quaternion N
+Array-program design: all hypotheses in one vmapped pass; the 4x4 quaternion N
 matrix is diagonalized with jnp.linalg.eigh.
 """
 

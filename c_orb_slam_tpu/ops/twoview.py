@@ -7,10 +7,10 @@ then motion recovery: ReconstructF (:470-570, E-decomposition with
 cheirality disambiguation CheckRT :798-907) or ReconstructH (:572-732,
 Faugeras 8-hypothesis decomposition).
 
-TPU-native: ALL hypotheses for BOTH models are evaluated in one vmapped
-pass (SURVEY.md §7.1 "everything RANSAC becomes batched") — there is no
-iterate loop at all; candidate motions from both decompositions are
-scored by a single batched cheirality/parallax check.
+Array-program design: ALL hypotheses for BOTH models are evaluated in one
+vmapped pass (SURVEY.md §7.1 "everything RANSAC becomes batched") — there is no
+iterate loop at all; candidate motions from both decompositions are scored by a
+single batched cheirality/parallax check.
 """
 
 from __future__ import annotations

@@ -8,13 +8,13 @@ strong covisibility edges (:951-982); 20 LM iterations on g2o's
 BlockSolver_7_3 (:985-988); afterwards poses are recovered as SE3 with the
 scale divided out (:991-1010).
 
-TPU-native: vertices (K, 8) packed Sim3, edges fixed-shape index arrays.
-Each GN iteration: vmapped jacrev of the 7-dof relative-log residual wrt
-both endpoint tangents -> per-edge (7, 14) Jacobian blocks; the normal
-system is never materialized — PCG runs on an implicit matvec built from
-two gathers and a segment-sum, with the block-diagonal (7x7 per vertex)
-inverse as preconditioner. Distributed scaling shards the edge axis
-exactly like parallel/dba.py shards observations.
+Array-program design: vertices (K, 8) packed Sim3, edges fixed-shape index
+arrays. Each GN iteration: vmapped jacrev of the 7-dof relative-log residual
+wrt both endpoint tangents -> per-edge (7, 14) Jacobian blocks; the normal
+system is never materialized — PCG runs on an implicit matvec built from two
+gathers and a segment-sum, with the block-diagonal (7x7 per vertex) inverse as
+preconditioner. Distributed scaling shards the edge axis exactly like
+parallel/dba.py shards observations.
 """
 
 from __future__ import annotations
@@ -148,7 +148,7 @@ def gn_step(
 
     The chunking unit for LoopClosing's background essential-graph job:
     one step dispatched per tracked frame, so the solve interleaves with
-    tracking programs on the chip instead of stalling the correction frame
+    tracking programs on the device instead of stalling the correction frame
     (the reference runs OptimizeEssentialGraph on its loop thread while
     Tracking continues, src/LoopClosing.cc:567 / Tracking.cc:277)."""
     return _gn_iter_impl(p, verts, pcg_iters, fix_scale)

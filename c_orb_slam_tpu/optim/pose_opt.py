@@ -5,9 +5,9 @@ SE3 vertex and unary mono/stereo edges, 4 rounds x 10 LM iterations,
 inlier reclassification at chi2 = 5.991 / 7.815 between rounds, Huber
 kernel dropped from round 3 (Optimizer.cc:407-437).
 
-TPU-native: the whole thing is one jitted fixed-shape program — residuals
-and Jacobians for all observations are vmapped, the 6x6 normal system is a
-batched reduce, rounds/iterations are static unrolls. No graph building,
+Array-program design: the whole thing is one jitted fixed-shape program —
+residuals and Jacobians for all observations are vmapped, the 6x6 normal system
+is a batched reduce, rounds/iterations are static unrolls. No graph building,
 no per-edge virtual calls.
 """
 

@@ -6,10 +6,10 @@ edges (EdgeSim3ProjectXYZ / Inverse, :1140-1173), Huber sqrt(10), two
 stages with chi2>10 inlier pruning between them (:1180-1217); scale fixed
 for stereo/RGB-D (`_fix_scale`, types_seven_dof_expmap.h:48).
 
-TPU-native: all matches are one fixed-shape batch; the 7-dof (or 6-dof
-fixed-scale) Jacobians come from vmapped jax.jacrev of the residual wrt
-the left-multiplied tangent update — a (M, 4, 7) tensor contracted into a
-7x7 normal system; the two stages and iterations are lax.scan bodies.
+Array-program design: all matches are one fixed-shape batch; the 7-dof (or
+6-dof fixed-scale) Jacobians come from vmapped jax.jacrev of the residual wrt
+the left-multiplied tangent update — a (M, 4, 7) tensor contracted into a 7x7
+normal system; the two stages and iterations are lax.scan bodies.
 """
 
 from __future__ import annotations

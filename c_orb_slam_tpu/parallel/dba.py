@@ -1,16 +1,15 @@
 """Distributed bundle adjustment over a device mesh.
 
-The reference has no distributed backend at all (single process,
-pthreads + shared memory; SURVEY.md §2.3). This module is where the
-TPU build goes beyond it: the observation list of a BA problem is
-sharded across devices (`obs` axis), while camera poses and points are
-replicated. Every segment-sum in the implicit-Schur PCG matvec
-(optim/ba.py) then becomes a local partial sum followed by an XLA
-all-reduce over ICI — GSPMD inserts the psum from the sharding
-annotations; no hand-written collectives are needed for the data-parallel
-layout. Per-iteration communication is O(C*6*6 + P*3*3) independent of
-the observation count, which is the right weak-scaling shape: adding
-devices adds observation capacity at constant collective volume.
+The reference has no distributed backend at all (single process, pthreads +
+shared memory; SURVEY.md §2.3). This module is where this build goes beyond it:
+the observation list of a BA problem is sharded across devices (`obs` axis),
+while camera poses and points are replicated. Every segment-sum in the
+implicit-Schur PCG matvec (optim/ba.py) then becomes a local partial sum
+followed by an XLA all-reduce across devices (NCCL over NVLink on GPUs) — GSPMD
+inserts the psum from the sharding annotations; no hand-written collectives are
+needed for the data-parallel layout. Per-iteration communication is O(C*6*6 +
+P*3*3) independent of the observation count, which is the right weak-scaling
+shape: adding devices adds observation capacity at constant collective volume.
 
 For map-sharded scaling (keyframe blocks per host, reduce-scatter of the
 camera system) see the round roadmap — this module establishes the mesh
@@ -74,7 +73,7 @@ def distributed_bundle_adjust(
 
     The solver body is the SAME code as single-chip optim/ba.py — the
     sharding annotations on the inputs make GSPMD partition every
-    per-observation op and all-reduce the segment-sums over ICI.
+    per-observation op and all-reduce the segment-sums across devices.
     This is the LOCAL-BA scale-out twin of parallel/sharded_ba (which
     shards the map itself for the global solve): a local window has few
     cameras but a dense observation set, so the observation axis is the

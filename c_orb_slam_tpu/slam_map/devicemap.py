@@ -5,9 +5,8 @@ tracking thread is free (src/Map.cc, KeyFrame.cc accessors). Here the map
 is owned by the host (slam_map/mapstate.py) but consumed by device
 programs; before this mirror existed, every tracked frame re-uploaded
 ~0.5 MB of gathered point rows and every mapping dispatch ~3 MB of
-keyframe rows. On a remote-attached chip each host->device transfer call
-costs ~3 ms regardless of size (latency-bound), so the uploads — a dozen
-per frame — dominated the frame budget.
+keyframe rows, a dozen latency-bound host->device transfer calls per
+frame.
 
 Design: full-capacity point/keyframe arrays live on device; host
 mutations mark rows dirty; `flush()` uploads only the dirty rows in ONE

@@ -15,7 +15,7 @@ MapPoint::Replace MapPoint.cc:177) — with flat index tables:
 Host-side bookkeeping is numpy (index juggling is latency-bound, not
 FLOP-bound); every hot kernel (matching, BA) consumes gathered fixed-shape
 device arrays. There is no lock anywhere: the host loop owns the map, and
-device work is pure (SURVEY.md §2.3 TPU-native plan, items 3/5).
+device work is pure (SURVEY.md §2.3 array-program plan, items 3/5).
 """
 
 from __future__ import annotations

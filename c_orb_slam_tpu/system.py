@@ -5,7 +5,7 @@ map, tracking and the worker threads (:32-114); TrackMonocular/Stereo/RGBD
 (:116-280) route frames; localization-only mode (:127-145); Reset (:295);
 Shutdown (:301); trajectory savers (:322-472).
 
-TPU-native: one host loop, no threads — LocalMapping (and later
+Array-program design: one host loop, no threads — LocalMapping (and later
 LoopClosing) run as stages after keyframe insertion (SURVEY.md §2.3).
 Images are accepted as numpy/JAX arrays (H, W) grayscale float32 or uint8;
 color conversion is the caller's concern (the reference converts with
@@ -279,7 +279,7 @@ class System:
     def warmup(self):
         """Pre-compile the per-process device-program set whose first
         call would otherwise land mid-sequence (currently: both local-BA
-        size buckets — ~1 s each on the chip). Optional; call once after
+        size buckets). Optional; call once after
         construction when steady-state latency matters from frame one
         (the reference pays an analogous startup cost parsing ORBvoc.txt,
         System.cc:64)."""

@@ -4,7 +4,7 @@ Reference: src/MapDrawer.cc — DrawMapPoints (:44, black points + red
 reference points), DrawKeyFrames (:83, blue frusta + green covisibility
 graph + spanning tree + loop edges), DrawCurrentCamera (:179, green
 frustum). Rendered with matplotlib (Agg) instead of Pangolin GL — SLAM on
-TPU pods is headless; figures go to PNG/HTML reports.
+accelerator servers is headless; figures go to PNG/HTML reports.
 """
 
 from __future__ import annotations

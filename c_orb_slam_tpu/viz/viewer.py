@@ -2,7 +2,7 @@
 
 Reference: src/Viewer.cc — a Pangolin window refreshed at camera fps with
 menu toggles (follow camera / show points / show KFs+graph / localization
-mode / reset, Viewer.cc:54-169). On headless TPU pods the equivalent is a
+mode / reset, Viewer.cc:54-169). On headless servers the equivalent is a
 report writer: it consumes System state every frame and periodically
 emits annotated-frame PNGs, map snapshots and a final HTML index.
 """

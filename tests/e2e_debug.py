@@ -5,13 +5,10 @@ import os
 import sys
 import time
 
-os.environ["JAX_PLATFORMS"] = os.environ.get("E2E_PLATFORM", "cpu")
 sys.path.insert(0, os.path.dirname(__file__))
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
-jax.config.update("jax_platforms", os.environ.get("E2E_PLATFORM", "cpu"))
-
 import numpy as np
 
 from c_orb_slam_tpu.config import SlamConfig, CameraConfig, OrbConfig, Sensor
@@ -71,6 +68,9 @@ def run(n_frames=30, n_feat=800, verbose=True):
 
 
 if __name__ == "__main__":
+    # Debug runs default to the CPU (E2E_PLATFORM names another platform);
+    # importing this module never changes the platform.
+    jax.config.update("jax_platforms", os.environ.get("E2E_PLATFORM", "cpu"))
     ate, n_ok, n = run()
     assert n_ok > 0.8 * n, f"tracked only {n_ok}/{n}"
     assert ate < 0.10, f"ATE {ate}"

@@ -1,22 +1,15 @@
 """Standalone end-to-end loop-closure run: outward-facing orbit revisiting
 its start sector (debug driver; run directly: python tests/e2e_loop_debug.py
-[stereo])."""
+[stereo], on the CPU unless E2E_PLATFORM names another platform)."""
 
 import os
 import sys
 import time
 
-_plat = os.environ.get("E2E_PLATFORM", "cpu")
-if _plat != "default":
-    os.environ["JAX_PLATFORMS"] = _plat
 sys.path.insert(0, os.path.dirname(__file__))
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
-
-if _plat != "default":
-    jax.config.update("jax_platforms", _plat)
-
 import numpy as np
 
 from c_orb_slam_tpu.config import (
@@ -170,6 +163,11 @@ def run(sensor=Sensor.MONOCULAR, n_frames=240, n_feat=800, verbose=True,
 
 
 if __name__ == "__main__":
+    # Debug runs default to the CPU; E2E_PLATFORM=default keeps JAX's own
+    # choice of device. Importing this module never changes the platform.
+    _plat = os.environ.get("E2E_PLATFORM", "cpu")
+    if _plat != "default":
+        jax.config.update("jax_platforms", _plat)
     sensor = Sensor.STEREO if "stereo" in sys.argv[1:] else Sensor.MONOCULAR
     ate, n_loops, n_ok, n = run(sensor)
     assert n_ok > 0.8 * n, f"tracked only {n_ok}/{n}"

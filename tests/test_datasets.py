@@ -179,8 +179,8 @@ def test_stereo_kitti_cli_runs(kitti_dir, tmp_path):
     # Accuracy gate on the PRODUCT SURFACE (not just exit-code smoke):
     # the saved KITTI rows are Twc per OK frame in order; with all 8
     # frames tracked the association to the rendered ground truth is
-    # row i <-> frame i. (tools/eval_cli_kitti.py is the bigger,
-    # chip-run version of this gate — artifact CLI_KITTI_EVAL.json.)
+    # row i <-> frame i. (tools/eval_cli_kitti.py is the bigger version
+    # of this gate, for a run on the GPU.)
     from c_orb_slam_tpu.io import trajectory as traj_io
 
     rows = np.loadtxt(str(out)).reshape(-1, 3, 4)

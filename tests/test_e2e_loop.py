@@ -8,13 +8,12 @@ snapshot-epoch global BA (chunked one LM step per frame, applied with
 spanning-tree replay) -> trajectory reconstruction through corrected
 keyframe poses.
 
-Counterfactuals measured 2026-08-21 (CPU, world_n=1400): no loop ATE
+Counterfactuals measured on the CPU (world_n=1400): no loop ATE
 0.762 m; loop + essential graph only 0.598 m; + background GBA 0.252 m
 (improved to ~0.04 once the solve advanced strictly once per frame —
-late frames then track against the settled result; the same sequence
-measured 0.043 m ON THE REAL CHIP, 240/240 tracked, loop closed,
-GBA applied). The ATE gate (0.4 m) FAILS if loop correction stops
-working.
+late frames then track against the settled result). chip_smoke.py's
+`loop` phase runs the same sequence on the GPU. The ATE gate (0.4 m)
+FAILS if loop correction stops working.
 
 ~2.5-3 min on CPU with a warm compile cache.
 """
@@ -80,10 +79,9 @@ def test_stereo_orbit_closes_loop_nonblocking():
         "the background solve is loading single frames"
     )
     # The correction frame itself carries only the fused propagate
-    # program + ONE fuse-block dispatch (round 4 ran the whole
-    # correction inline: 8.2 s on chip = ~80 dropped frames at 10 Hz;
-    # measured now ~0.75 s ≈ 1x the median chip frame). The 30 s floor
-    # is the cold-compile allowance for _propagate_program on CI.
+    # program + ONE fuse-block dispatch (an earlier version ran the whole
+    # correction inline, dozens of dropped frames at 10 Hz). The 30 s
+    # floor is the cold-compile allowance for _propagate_program on CI.
     t_corr = float(t[run.last_loops_at[0]])
     assert t_corr < max(8 * med, 30.0), (
         f"the correction frame took {t_corr:.1f}s (median {med:.2f}s): "

@@ -1,5 +1,5 @@
 """Native C++ image loader tests: build, decode parity vs PIL, prefetch
-ordering (the TPU-native replacement for the reference's cv::imread IO
+ordering (the array-program replacement for the reference's cv::imread IO
 path, Examples/Stereo/stereo_kitti.cc:85)."""
 
 import numpy as np

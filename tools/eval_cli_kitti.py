@@ -8,8 +8,7 @@ saved KITTI trajectory against the rendered ground truth.
 
 This exercises the same path a user runs (reference anchor:
 Examples/Stereo/stereo_kitti.cc:54-126), unlike bench.py which calls the
-System API directly. Output: one JSON line + CLI_KITTI_EVAL.json
-artifact next to RESULTS.md.
+System API directly. Output: one JSON line naming the device.
 
 Usage: python tools/eval_cli_kitti.py [n_frames]
 """
@@ -119,12 +118,14 @@ def main():
         raise SystemExit(1)
     ate = traj_io.ate_rmse(poses_cw, traj[:n], with_scale=False)
     rec["value"] = round(float(ate), 4)
+    # This process opens the device only now, after the CLI child has
+    # exited: one process per card.
     import jax
 
-    rec["device"] = str(jax.devices()[0])
+    dev = jax.devices()[0]
+    rec["device"] = {"platform": dev.platform, "kind": dev.device_kind,
+                     "count": len(jax.devices())}
     print(json.dumps(rec))
-    with open(os.path.join(REPO, "CLI_KITTI_EVAL.json"), "w") as f:
-        json.dump(rec, f, indent=1)
 
 
 if __name__ == "__main__":

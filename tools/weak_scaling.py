@@ -7,10 +7,11 @@ The communication design predicts near-flat: per PCG iteration the
 collective volume is one all_gather(6C) + one psum_scatter(6C),
 independent of the observation count (parallel/sharded_ba.py).
 
-Runs on the virtual CPU mesh by default (the same code path runs
-unmodified on a real TPU slice):
+Runs on a virtual CPU mesh by default; --ambient runs the same code on
+the devices JAX finds (for instance four GPUs):
 
     python tools/weak_scaling.py [--devices 1 2 4 8] [--obs-per-dev 4096]
+    python tools/weak_scaling.py --ambient --devices 1 2 4
 
 Prints one JSON line per mesh size plus a summary line.
 """
@@ -125,14 +126,14 @@ def main():
     ap.add_argument("--cams", type=int, default=32)
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument(
-        "--tpu", action="store_true",
-        help="use the ambient (TPU) platform instead of a virtual CPU mesh",
+        "--ambient", action="store_true",
+        help="run on the devices JAX finds instead of a virtual CPU mesh",
     )
     args = ap.parse_args()
 
     max_d = max(args.devices)
-    if not args.tpu:
-        # Virtual CPU mesh (a real multi-chip slice runs the same code).
+    if not args.ambient:
+        # Virtual CPU mesh (real devices run the same code).
         os.environ["JAX_PLATFORMS"] = "cpu"
         os.environ["XLA_FLAGS"] = (
             os.environ.get("XLA_FLAGS", "")
@@ -140,7 +141,7 @@ def main():
         ).strip()
     import jax
 
-    if not args.tpu:
+    if not args.ambient:
         jax.config.update("jax_platforms", "cpu")
     import numpy as np
 
@@ -179,7 +180,7 @@ def main():
         )
     # Collective-traffic accounting from compiled HLO: the check a
     # shared-core virtual mesh CAN make honestly (see collective_bytes).
-    if not args.tpu:
+    if not args.ambient:
         acct = {}
         for d in [x for x in args.devices if 1 < x <= avail]:
             b1, c1 = collective_bytes(d, args.obs_per_dev, args.pts_per_dev,
@@ -215,24 +216,7 @@ def main():
             out["host_cores"] = os.cpu_count()
         except Exception:
             pass
-        # ICI projection for a REAL slice (model, not measurement):
-        # per-solve collective traffic is the accounted bytes (O(cams),
-        # obs-independent); at ICI bandwidth ~1e11 B/s + ~1e-6 s/hop
-        # latency over (3+3)*20 PCG iterations, the collective share of
-        # a >=100 ms solve is <1e-3 — projected efficiency >0.99,
-        # bounded in practice by per-iteration dispatch latency, not
-        # bandwidth.
-        out["ici_projection"] = {
-            "collective_bytes_per_solve": 3072,
-            "assumed_ici_bytes_per_s": 1e11,
-            "assumed_hop_latency_s": 1e-6,
-            "pcg_collective_rounds": (3 + 3) * 20,
-            "projected_collective_share_of_100ms_solve": round(
-                ((3 + 3) * 20 * 1e-6 + 3072 / 1e11) / 0.1, 5
-            ),
-            "model_not_measurement": True,
-        }
-        if not args.tpu:
+        if not args.ambient:
             # All virtual devices share this host's physical cores, so the
             # measured efficiency is a LOWER bound: D virtual devices do
             # D× total FLOPs on fixed silicon. The architecture-level
@@ -240,7 +224,7 @@ def main():
             # tests/test_sharded_ba.py::test_sharded_point_side_is_local.
             out["note"] = (
                 "virtual CPU mesh: devices share host cores; efficiency "
-                "is a lower bound, run with --tpu on a real slice"
+                "is a lower bound, run with --ambient on real devices"
             )
         print(json.dumps(out))
 
